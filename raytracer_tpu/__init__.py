@@ -1,4 +1,4 @@
-"""raytracer_tpu — a TPU-native differentiable wavefront ray tracer.
+"""raytracer_tpu — a differentiable wavefront ray tracer for the GPU.
 
 Brand-new JAX/XLA/Pallas implementation of the capabilities of
 bitfrozen/rendering-algorithms-raytracer (a CPU/SSE Miro-style C++ tracer):
@@ -7,7 +7,7 @@ Lambert/Blinn shading with Fresnel reflection/refraction/dispersion,
 point/rectangle/HDR-dome lights with importance sampling, texture maps
 (color/alpha/normal/specular), motion blur, two-level instancing, adaptive
 supersampling — re-architected as a differentiable wavefront path tracer
-sharded over TPU meshes.
+sharded over device meshes.
 """
 
 from .core.types import (Camera, RenderSettings, Scene, MAT_BLINN,

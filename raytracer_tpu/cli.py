@@ -3,7 +3,7 @@
 The reference's front end is an interactive GLUT window whose keyboard edits
 render parameters live (MiroWindow, src/MiroWindow.cpp:467-749: FOV 'f',
 focus 'o', aperture 'p', paths 'h', bounces 'b', min/max subdivs 'u'/'v',
-noise 'n', shutter 'e', path-trace toggle 't', screenshot 'i'). Headless TPU
+noise 'n', shutter 'e', path-trace toggle 't', screenshot 'i'). Headless
 jobs get the same knobs as flags, the screenshot as a PPM, and the
 post-render stats line (src/Scene.cpp:211-216).
 
@@ -110,7 +110,9 @@ def main(argv=None):
     import jax
     import raytracer_tpu as rt
     from .io import imageio
-    from .utils import console
+    from .utils import console, runtime
+
+    runtime.enable_compile_cache()
 
     kw = {}
     if args.size is not None:

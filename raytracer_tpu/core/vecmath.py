@@ -50,6 +50,14 @@ def normalize(a: jax.Array, eps: float = 1e-20) -> jax.Array:
     return a * jax.lax.rsqrt(jnp.maximum(length2(a), eps))[..., None]
 
 
+def sqrt0(x: jax.Array) -> jax.Array:
+    """sqrt(max(0, x)) whose gradient is 0 where x <= 0. The plain form's
+    gradient there is inf * 0 = NaN, which a jnp.where around the result
+    does not mask in the backward pass."""
+    pos = x > 0.0
+    return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, 1.0)), 0.0)
+
+
 def average(a: jax.Array) -> jax.Array:
     """Mean of the 3 components (reference Vector3::average)."""
     return jnp.mean(a, axis=-1)
@@ -74,7 +82,7 @@ def refract(d: jax.Array, n: jax.Array, v_dot_n: jax.Array, eta: jax.Array) -> j
     eta = n_in / n_out; under TIR the sqrt clamps to 0 (grazing direction),
     mirroring the reference's max(0, .) clamp.
     """
-    sqrt_part = jnp.sqrt(jnp.maximum(0.0, 1.0 - (eta * eta) * (1.0 - v_dot_n * v_dot_n)))
+    sqrt_part = sqrt0(1.0 - (eta * eta) * (1.0 - v_dot_n * v_dot_n))
     t = eta[..., None] * d + n * (eta * v_dot_n - sqrt_part)[..., None]
     return normalize(t)
 
@@ -87,10 +95,10 @@ def fresnel(n1: jax.Array, n2: jax.Array, cos_theta_i: jax.Array) -> jax.Array:
     with cos_t = max(0, sqrt(1 - (n1*sin/n2)^2)). Under TIR cos_t = 0 -> Rs = 1.
     """
     cos_theta_i = jnp.clip(cos_theta_i, 0.0, 1.0)
-    sin_theta_i = jnp.sqrt(jnp.maximum(0.0, 1.0 - cos_theta_i * cos_theta_i))
+    sin_theta_i = sqrt0(1.0 - cos_theta_i * cos_theta_i)
     n1_cos = n1 * cos_theta_i
     s = n1 * sin_theta_i / n2
-    n2_cos = n2 * jnp.sqrt(jnp.maximum(0.0, 1.0 - s * s))
+    n2_cos = n2 * sqrt0(1.0 - s * s)
     rs = (n1_cos - n2_cos) / jnp.maximum(n1_cos + n2_cos, 1e-12)
     return rs * rs
 
@@ -102,7 +110,7 @@ def schlick_fresnel(n1: jax.Array, n2: jax.Array, cos_theta_i: jax.Array) -> jax
     n = n1 / n2
     sin_t2 = n * n * (1.0 - cos_theta_i * cos_theta_i)
     tir = (n1 > n2) & (sin_t2 > 1.0)
-    cos_x = jnp.where(n1 > n2, jnp.sqrt(jnp.maximum(0.0, 1.0 - sin_t2)), cos_theta_i)
+    cos_x = jnp.where(n1 > n2, sqrt0(1.0 - sin_t2), cos_theta_i)
     x = 1.0 - cos_x
     out = r0 + (1.0 - r0) * x * x * x * x * x
     return jnp.where(tir, 1.0, out)

@@ -209,8 +209,8 @@ def transform_mesh(mesh: MeshData, m: np.ndarray) -> MeshData:
     renormalized; tangent frames by the linear part (reference
     loadObj-with-CTM semantics, src/TriangleMeshLoad.cpp:120-140). Used to
     BAKE instances into single-level geometry when the flattened triangle
-    count fits memory — the TPU block-coherent tracer is 2-3x faster than
-    two-level pointer traversal (PERF.md).
+    count fits memory, so the scene takes the single-level cluster tracers
+    instead of two-level BVH traversal.
     """
     m = np.asarray(m, np.float32)
     if m.shape == (4, 4):

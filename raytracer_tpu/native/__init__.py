@@ -1,8 +1,8 @@
 """Native host components (C++ via ctypes) with lazy on-demand compilation.
 
 The reference's hot host-side paths are native C++ (BVH build src/BVH.cpp,
-OBJ load src/TriangleMeshLoad.cpp); this package provides the TPU framework's
-equivalents. The shared library is built from rt_native.cpp with g++ on first
+OBJ load src/TriangleMeshLoad.cpp); this package provides their
+equivalents here. The shared library is built from rt_native.cpp with g++ on first
 use and cached next to the source; every caller has a pure-numpy fallback, so
 a missing toolchain only costs speed.
 """

@@ -2,9 +2,8 @@
 
 The dense-cull + near-ordered cluster sweep described in
 geometry/clusters.py, expressed with standard XLA ops so it runs on any
-backend (tests run it on CPU; the Pallas kernel in ops/pallas/cluster_kernel
-is the VMEM-resident TPU version of the same algorithm and is validated
-against this).
+backend (tests run it on CPU; the GPU kernel in ops/pallas/cluster_kernel
+walks the same table and is validated against this).
 
 Reference behavior mirrored: nearest-hit selection with t-pruning
 (src/BVH.cpp:1112-1295), shadow any-hit early-out (src/BVH.cpp:1438),
@@ -115,7 +114,7 @@ def cluster_trace(scene: Scene, o, d, time, tmin, tmax,
         k, best_t, best_tri, _, _, found = s
         key_k = jax.lax.dynamic_index_in_dim(
             near_sorted, jnp.minimum(k, M - 1), axis=1, keepdims=False)
-        viable = (key_k < best_t) & (key_k < BIG)
+        viable = (key_k <= best_t) & (key_k < BIG)
         if any_hit:
             viable = viable & ~found
         return (k < iters) & jnp.any(viable)
@@ -126,21 +125,27 @@ def cluster_trace(scene: Scene, o, d, time, tmin, tmax,
         m = jax.lax.dynamic_index_in_dim(order, kc, axis=1, keepdims=False)
         key_k = jax.lax.dynamic_index_in_dim(near_sorted, kc, axis=1,
                                              keepdims=False)
-        active = (key_k < best_t) & (key_k < BIG)
+        active = (key_k <= best_t) & (key_k < BIG)
         if any_hit:
             active = active & ~found
         t, a, b, ok, tid = _mt_cluster(cl, m, o, d, time, mb)
-        ok = ok & active[:, None] & (t >= tmin[:, None]) & (t < best_t[:, None])
+        ok = ok & active[:, None] & (t >= tmin[:, None]) \
+            & (t <= best_t[:, None])
         if scene.has_alpha_maps:
             alpha = _alpha_of(scene, jnp.maximum(tid, 0), a, b)
             ok = ok & (alpha >= 0.5)
+        # nearest (t, triangle id): among equal t the smallest id wins, as
+        # in brute_force_trace, so the hit does not depend on visit order
         t = jnp.where(ok, t, BIG)
-        j = jnp.argmin(t, axis=-1)
+        tj = jnp.min(t, axis=-1)
+        cand = ok & (t == tj[:, None])
+        tidj = jnp.min(jnp.where(cand, tid, jnp.iinfo(jnp.int32).max), -1)
+        j = jnp.argmax(cand & (tid == tidj[:, None]), axis=-1)
         rows = jnp.arange(R)
-        tj = t[rows, j]
-        got = tj < BIG
+        got = (tj < BIG) & ((tj < best_t) | ((tj == best_t) & (best_tri >= 0)
+                                             & (tidj < best_tri)))
         best_t = jnp.where(got, tj, best_t)
-        best_tri = jnp.where(got, tid[rows, j], best_tri)
+        best_tri = jnp.where(got, tidj, best_tri)
         best_a = jnp.where(got, a[rows, j], best_a)
         best_b = jnp.where(got, b[rows, j], best_b)
         return (k + 1, best_t, best_tri, best_a, best_b, found | got)
@@ -172,9 +177,9 @@ def alpha_aware_trace(scene: Scene, trace_once, o, d, time, tmin, tmax,
     Follow-up passes run on a SHRINKING STATIC PREFIX: live rays are
     stable-partitioned to the front (two cumsums + a scatter) and pass p
     traces/updates only the first max(4096, R >> (p+1)) rows — the forest
-    canopy's live set decays 13%, 7%, 4%, ... per pass, but full-wavefront
-    gathers/alpha lookups/state updates cost ~30-45 ms per pass at 130k
-    rays, which made the 12-pass chain ~7x the raw trace. Live rays past
+    canopy's live set decays 13%, 7%, 4%, ... per pass, while full-wavefront
+    gathers/alpha lookups/state updates would cost a whole-wavefront pass
+    each time. Live rays past
     a pass's budget simply wait (the partition is stable), consuming a
     pass of the budget — the same exhaustion fallback as before.
     """

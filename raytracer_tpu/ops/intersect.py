@@ -15,7 +15,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.types import Scene
 from ..core.vecmath import MIRO_TMAX, transform_point, transform_vector

@@ -9,8 +9,8 @@ path. This module is the only place that touches `jax.distributed`:
   * `global_mesh()` builds the 1-D 'rays' mesh over the GLOBAL device list
     (all hosts), so every shard_map entry point in parallel/sharding.py
     (render_sharded, loss_and_grads_scanned(mesh=...), train_step) runs
-    unmodified across hosts — XLA routes the psum/ppermute over ICI within
-    a slice and DCN across hosts;
+    unmodified across hosts — XLA hands the psum/ppermute to NCCL, over
+    NVLink between the GPUs of a host and the network between hosts;
   * host-local I/O helpers gather the per-host shards of a global array.
 
 Environment contract (set by the launcher, e.g. scripts/multihost_worker.py
@@ -18,11 +18,13 @@ or a scheduler):
   RT_COORDINATOR     host:port of process 0
   RT_NUM_PROCESSES   total process count
   RT_PROCESS_ID      this process's id (0-based)
+  RT_PROCS_PER_HOST  optional: processes per host, one per GPU; when set,
+                     process p takes only GPU p modulo RT_PROCS_PER_HOST
   RT_CPU_DEVICES     optional: per-process virtual CPU device count (tests)
 
 Tested end-to-end on CPU with 2 localhost processes (gloo collectives,
-tests/test_multihost.py); on real TPU pods the same env vars + the default
-backend drive it unmodified.
+tests/test_multihost.py); on GPUs the same env vars drive it, one process
+per GPU.
 """
 from __future__ import annotations
 
@@ -36,8 +38,10 @@ def init_from_env() -> bool:
     multi-process runtime was initialized; False for single-process use.
 
     Must run before any jax device/computation touch. For CPU runs the
-    cross-process collectives backend is set to gloo (TPU uses ICI/DCN
-    natively).
+    cross-process collectives backend is set to gloo (GPUs use NCCL).
+    With several processes on one GPU host, each takes only its own card
+    (local_device_ids): a JAX process reserves most of a card's memory, so
+    two on one card fail.
     """
     coord = os.environ.get('RT_COORDINATOR')
     if not coord:
@@ -54,11 +58,20 @@ def init_from_env() -> bool:
             jax.config.update('jax_cpu_collectives_implementation', 'gloo')
         except (AttributeError, ValueError):  # pragma: no cover
             pass
+    pid = int(os.environ['RT_PROCESS_ID'])
     jax.distributed.initialize(
         coordinator_address=coord,
         num_processes=int(os.environ['RT_NUM_PROCESSES']),
-        process_id=int(os.environ['RT_PROCESS_ID']))
+        process_id=pid, local_device_ids=None if n_cpu else
+        local_device_ids(pid))
     return True
+
+
+def local_device_ids(pid: int) -> list[int] | None:
+    """The GPU of this host that process `pid` takes (pid modulo
+    RT_PROCS_PER_HOST), or None (every local device) when that is unset."""
+    per_host = os.environ.get('RT_PROCS_PER_HOST')
+    return [pid % int(per_host)] if per_host else None
 
 
 def global_mesh(n_devices: int | None = None):

@@ -171,128 +171,57 @@ def _sort_wavefront(state: dict) -> dict:
     return jax.tree_util.tree_map(lambda x: x[perm], state)
 
 
-def _pallas_cluster_ok(scene: Scene) -> bool:
-    """Kernel eligibility: single-level scenes with a cluster table.
-    Tables beyond the per-kernel VMEM budget are row-chunked (_mb_chunks)
-    and the per-chunk hits merged by nearest t, so size does not gate.
-    Alpha-cutout scenes are handled by the re-trace wrapper
-    (cluster_trace.alpha_aware_trace) around the kernel."""
-    return scene.clusters is not None and scene.single_level
+# Tracer that 'auto' picks for single-level scenes on the GPU, chosen by
+# the end-to-end timing in PERF.md (bench.py with each intersector).
+GPU_SINGLE_LEVEL = 'cluster_pallas'
 
 
-def _pallas_icluster_ok(scene: Scene) -> bool:
-    """Two-level kernel eligibility: the shared prototype tables + one
-    segment-table slice + the per-block (RB, E) cull matrix fit scoped
-    VMEM. Segment tables beyond 32767 entries are sliced inside the
-    kernel wrapper (instance count does NOT gate — that's the 1M-bunny
-    scaling path); only the prototype triangle pool can outgrow VMEM."""
-    icl = scene.iclusters
-    if icl is None or scene.single_level:
-        return False
-    from ..ops.pallas.icluster_kernel import DEF_RB
-    Mtot, C = icl.tri.shape
-    tables = (10 * Mtot * C) * 4
-    if icl.max_proto_clusters <= 16:
-        # segment kernel: the wrapper slices its own (RB, E) working set
-        work = 3 * 1024 * 1024
-    else:
-        # hierarchical kernel: whole (RB, I) instance keys + (RB, MP)
-        # prototype cull live at once, plus pbb
-        I = icl.ibb.shape[1]
-        MP = icl.pbb.shape[1]
-        tables += icl.pbb.size * 4
-        work = 3 * DEF_RB * (I + MP) * 4
-    ok = tables + work <= 13 * 1024 * 1024
-    if not ok:
-        from ..utils import console
-        console.warning(
-            f'two-level kernel ineligible: prototype tables '
-            f'{tables / 1e6:.1f} MB exceed the VMEM budget — falling back '
-            f'to the (much slower) vmap BVH tracer')
-    return ok
+def auto_intersector(scene: Scene, backend: str) -> str:
+    """The intersector 'auto' resolves to on `backend` for `scene`.
+
+    Single-level scenes on the GPU take GPU_SINGLE_LEVEL; two-level scenes
+    (and every scene off the GPU) take the BVH; scenes built without a BVH
+    take the brute-force tracer."""
+    if scene.blas is None:
+        return 'brute'
+    if backend == 'gpu' and scene.clusters is not None:
+        return GPU_SINGLE_LEVEL
+    return 'bvh'
 
 
-def _mb_chunks(mb, has_mb: bool = True):
-    """Split a cluster table into row chunks that each fit the
-    single-level kernel's VMEM budget; hits merge by nearest t. has_mb:
-    the t=1 pose tables count only for motion-blurred tables (static
-    kernels get dummy q operands)."""
-    M, _, C = mb.p0.shape
-    n_basis = 6 if has_mb else 3
-    nbytes = M * 3 * C * 4 * n_basis + M * C * 4 + M * 6 * 4
-    # 13 MB of tables + the kernel's working set fits the 16 MB scoped
-    # VMEM limit (sponza_hd's 2080-cluster table measured single-chunk at
-    # 3.16/2.55 Mray/s coh/incoh vs 2.76/2.22 split in two)
-    n = -(-nbytes // (13 * 1024 * 1024))
-    if n <= 1:
-        return [mb]
-    step = -(-M // n)
-    out = []
-    for lo in range(0, M, step):
-        hi = min(lo + step, M)
-        sl = lambda x: x[lo:hi]
-        out.append(mb.replace(
-            bb_min=sl(mb.bb_min), bb_max=sl(mb.bb_max),
-            p0=sl(mb.p0), e1=sl(mb.e1), e2=sl(mb.e2),
-            p0_t1=sl(mb.p0_t1), e1_t1=sl(mb.e1_t1), e2_t1=sl(mb.e2_t1),
-            tri=sl(mb.tri)))
-    return out
-
-
-def _merge_hits(h1, h2):
-    """Nearest-of-two hits (the static instanced pass + the MB pass)."""
-    take2 = h2.valid & (~h1.valid | (h2.t < h1.t))
-    pick = lambda x2, x1: jnp.where(take2, x2, x1)
-    from ..ops.intersect import Hit
-    return Hit(t=pick(h2.t, h1.t), tri=pick(h2.tri, h1.tri),
-               inst=pick(h2.inst, h1.inst), a=pick(h2.a, h1.a),
-               b=pick(h2.b, h1.b))
+def _need_clusters(scene: Scene, mode: str) -> None:
+    if scene.clusters is None:
+        raise ValueError(
+            f"intersector={mode!r} needs a single-level scene with a cluster "
+            "table; two-level scenes trace with 'bvh'")
 
 
 def trace_fn(scene: Scene, settings: RenderSettings):
-    """Select the intersector backend -> tracer(o,d,time,tmin,tmax,any_hit)."""
+    """Select the intersector backend -> tracer(o,d,time,tmin,tmax,any_hit).
+
+    A mode the scene cannot use raises; nothing is swapped silently."""
     mode = settings.intersector
     if mode == 'auto':
-        if jax.default_backend() == 'tpu' and _pallas_cluster_ok(scene):
-            # measured on sponza_proxy (58k tris, v5e, 8192-ray wavefronts):
-            # pallas cluster kernel 4.2 ms coherent / 84 ms incoherent vs
-            # XLA cluster 188 ms vs vmap'd BVH while_loop ~1.8 s per trace
-            mode = 'cluster_pallas'
-        elif jax.default_backend() == 'tpu' and _pallas_icluster_ok(scene):
-            mode = 'cluster2'
-        else:
-            mode = 'bvh' if scene.blas is not None else 'brute'
+        mode = auto_intersector(scene, jax.default_backend())
     if mode == 'brute':
         def tracer(o, d, time, tmin, tmax, any_hit):
             return isect.brute_force_trace(scene, o, d, time, tmin, tmax,
                                            any_hit)
         return tracer
-    if mode == 'pallas':
-        from ..ops import pallas as plk
-
-        def tracer(o, d, time, tmin, tmax, any_hit):
-            return plk.pallas_brute_trace(scene, o, d, time, tmin, tmax,
-                                          any_hit)
-        return tracer
     if mode == 'cluster':
+        _need_clusters(scene, mode)
         from ..ops import cluster_trace as ct
 
         def tracer(o, d, time, tmin, tmax, any_hit):
             return ct.cluster_trace(scene, o, d, time, tmin, tmax, any_hit)
         return tracer
     if mode == 'cluster_pallas':
+        _need_clusters(scene, mode)
         from ..ops.pallas import cluster_kernel as ck
 
-        # tables beyond the per-kernel VMEM budget split into row chunks
-        # (SAH build order -> spatially coherent chunks); per-chunk hits
-        # merge by nearest t
-        def once(o_, d_, tm_, tn_, tx_, ah):
-            h = None
-            for tab in _mb_chunks(scene.clusters, scene.has_motion_blur):
-                h2 = ck.pallas_cluster_trace(scene, o_, d_, tm_, tn_, tx_,
-                                             ah, table=tab)
-                h = h2 if h is None else _merge_hits(h, h2)
-            return h
+        def once(o, d, time, tmin, tmax, any_hit):
+            return ck.pallas_cluster_trace(scene, o, d, time, tmin, tmax,
+                                           any_hit)
 
         if scene.has_alpha_maps:
             from ..ops import cluster_trace as ct
@@ -302,66 +231,6 @@ def trace_fn(scene: Scene, settings: RenderSettings):
                                             tmax, any_hit)
             return tracer
         return once
-    if mode == 'cluster2':
-        # two-level instanced kernel (+ separate MB pass, merged by t),
-        # alpha-cutout handled by the re-trace wrapper
-        from ..ops.pallas import icluster_kernel as ick
-        from ..ops.pallas import iseg_kernel as isg
-        from ..ops.pallas import cluster_kernel as ck
-
-        # shallow prototypes -> flat segment kernel (instances batched
-        # into each MT pass; segment-table slices scale past 100k
-        # instances); deep prototypes (forest trees: hundreds of clusters
-        # each) -> hierarchical kernel, whose instance-level cull skips
-        # whole trees instead of testing every chunk box
-        if scene.iclusters.max_proto_clusters <= 16:
-            inst_trace = isg.pallas_iseg_trace
-        else:
-            inst_trace = ick.pallas_icluster_trace
-
-        def trace_mb(o, d, time, tmin, tmax, any_hit, h):
-            for tab in _mb_chunks(scene.mb_clusters):
-                h2 = ck.pallas_cluster_trace(scene, o, d, time, tmin,
-                                             tmax, any_hit,
-                                             table=tab, mb=True)
-                h = h2 if h is None else _merge_hits(h, h2)
-            return h
-
-        def base(o, d, time, tmin, tmax, any_hit):
-            h = inst_trace(scene, o, d, time, tmin, tmax, any_hit)
-            if scene.mb_clusters is not None:
-                h = trace_mb(o, d, time, tmin, tmax, any_hit, h)
-            return h
-
-        if not scene.has_alpha_maps:
-            return base
-        from ..ops import cluster_trace as ct
-
-        if scene.mb_clusters is None or scene.mb_has_alpha:
-            # MB triangles carry alpha maps too: everything re-traces
-            def tracer(o, d, time, tmin, tmax, any_hit):
-                return ct.alpha_aware_trace(scene, base, o, d, time, tmin,
-                                            tmax, any_hit)
-            return tracer
-
-        # Opaque MB partition: trace it ONCE, bound the alpha re-trace
-        # march by its hit t (the march only needs instanced hits nearer
-        # than the opaque MB surface), merge at the end. Saves n_chunks
-        # kernel launches per re-trace pass.
-        def tracer(o, d, time, tmin, tmax, any_hit):
-            h_mb = trace_mb(o, d, time, tmin, tmax, any_hit, None)
-            tmax2 = jnp.minimum(jnp.broadcast_to(jnp.asarray(tmax,
-                                                             o.dtype),
-                                                 o.shape[:1]),
-                                jax.lax.stop_gradient(h_mb.t))
-
-            def inst_only(o_, d_, t_, tn_, tx_, ah):
-                return inst_trace(scene, o_, d_, t_, tn_, tx_, ah)
-
-            h = ct.alpha_aware_trace(scene, inst_only, o, d, time, tmin,
-                                     tmax2, any_hit)
-            return _merge_hits(h, h_mb)
-        return tracer
     if mode == 'ring':
         # geometry-sharded: scene.clusters holds THIS device's shard; must
         # run inside shard_map (parallel/sharding.render_geometry_sharded)
@@ -370,7 +239,12 @@ def trace_fn(scene: Scene, settings: RenderSettings):
         def tracer(o, d, time, tmin, tmax, any_hit):
             return ring.ring_trace(scene, o, d, time, tmin, tmax, any_hit)
         return tracer
+    if mode != 'bvh':
+        raise ValueError(f'unknown intersector {mode!r}')
+    if scene.blas is None:
+        raise ValueError("intersector='bvh' needs a scene built with bvh=True")
     from ..ops import traverse
+
     def tracer(o, d, time, tmin, tmax, any_hit):
         return traverse.bvh_trace(scene, o, d, time, tmin, tmax, any_hit)
     return tracer
@@ -430,7 +304,7 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time, base_key,
         kind = state['kind']
         time = state['time']
         # dead lanes get tmax < 0: every tracer culls them instantly, and
-        # the Pallas kernels skip whole all-dead blocks (dead rays compact
+        # the cluster kernel skips whole all-dead blocks (dead rays compact
         # to the back under sort_rays)
         tmax_live = jnp.where(alive, jnp.float32(MIRO_TMAX),
                               jnp.float32(-1.0))
@@ -441,9 +315,8 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time, base_key,
         # ---------------------------------------------- hit attrs + lookups
         # all of this bounce's texture reads (the 5 surface maps and the
         # miss-path env chain for d) fuse into ONE texel-pool gather: its
-        # transpose is a single scatter-add into tex_data, which round-5
-        # profiling measured as HALF the whole fwd+bwd at one per corner
-        # fetch (scripts/probe_bwd_parts.py, PERF.md)
+        # transpose is a single scatter-add into tex_data instead of one
+        # per lookup
         tri = jnp.maximum(hit.tri, 0)
         mat = scene.geom.face_mat[tri]
         N, geoN, T, BT, u, v = hit_attributes(scene, tri, hit.inst, a, b)
@@ -558,7 +431,7 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time, base_key,
         # per-lane mask inside the samplers
         # shadow rays only for lanes whose terms survive (diffuse branch of
         # a real hit) — the rest trace with tmax<0 (instant cull / whole
-        # dead Pallas blocks skipped)
+        # dead kernel blocks skipped)
         lpw, specw3, lp_back = lt.sample_all_lights(
             scene, tracer, P, the_n, rvec, spec_exp, time, k_l1, False,
             settings, want_back=scene.has_translucency,
@@ -682,10 +555,9 @@ def radiance(scene: Scene, settings: RenderSettings, o, d, time, base_key,
                             lambda s: s, state), None
 
     steps = settings.max_wavefront_steps
-    # Optionally remat the bounce body. Default OFF: jax.checkpoint around
-    # this scan body produces a backward executable that kernel-faults the
-    # TPU for specific input values (see RenderSettings.remat); memory is
-    # bounded by streaming ray tiles instead (sharding.loss_and_grads_streamed).
+    # Optionally remat the bounce body (RenderSettings.remat); memory is
+    # otherwise bounded by streaming ray tiles
+    # (sharding.loss_and_grads_streamed / loss_and_grads_scanned).
     body = jax.checkpoint(step_or_skip, prevent_cse=False) if settings.remat \
         else step_or_skip
     state, _ = jax.lax.scan(body, state, jnp.arange(steps, dtype=jnp.int32))

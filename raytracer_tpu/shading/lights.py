@@ -54,8 +54,8 @@ def _shadow_attenuation(scene: Scene, tracer, P, L, dist, time,
 
     active (bool (R,) or None): rays whose shading term will be masked out
     anyway (non-diffuse-branch lanes) skip the shadow trace — their tmax
-    goes negative, which every tracer culls instantly and the Pallas
-    kernels use to skip whole dead blocks.
+    goes negative, which every tracer culls instantly and the cluster
+    kernel uses to skip whole dead blocks.
     """
     R = P.shape[0]
     if not cast_shadows:
@@ -242,8 +242,7 @@ def _sample_cdf_rows(cdf2, rows, u):
     exactly equal to the dense lower_bound (count of strictly-smaller
     entries), but via a binary search of log2(n) POINTWISE gathers — the
     dense form gathered the full (R, n+1) row per ray, which at a
-    1k-tall env map moved ~0.5 GB per dome sample per bounce and was the
-    measured wall of the forest render (PERF.md round 5)."""
+    1k-tall env map moves ~0.5 GB per dome sample per bounce."""
     n = cdf2.shape[-1] - 1
     lo = jnp.zeros(u.shape, jnp.int32)          # lower_bound in [0, n+1]
     hi = jnp.full(u.shape, n + 1, jnp.int32)

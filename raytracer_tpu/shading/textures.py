@@ -37,9 +37,8 @@ def tex_lookup(tp: TexturePack, tex_id, u, v):
 
     An empty pool (a textureless scene) short-circuits to rgb 0 / alpha 1
     STATICALLY: otherwise every bounce still emits the clamped pool gather,
-    whose transpose is a serial-ish TPU scatter that round-5 profiling
-    measured at ~100 ns/update — half the headline fwd+bwd wasted
-    scattering into a zero-length array (scripts/probe_scatter.py)."""
+    whose transpose scatters into a zero-length array in the backward
+    pass."""
     if tp.data.shape[0] == 0:
         return _no_texture_rgba(u)
     idx, state = _lookup_plan(tp, tex_id, u, v)
@@ -54,7 +53,7 @@ def _lookup_plan(tp: TexturePack, tex_id, u, v):
     out so tex_lookup_batch can fuse MANY lookups into ONE pool gather —
     the gather's transpose is a scatter-add into the (large) texel pool,
     and one fused scatter per bounce is far cheaper than one per corner
-    fetch (the round-5 backward-pass bottleneck, see PERF.md)."""
+    fetch."""
     tid = jnp.maximum(tex_id, 0)
     off = tp.offset[tid]
     w = tp.width[tid]

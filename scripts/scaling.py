@@ -10,9 +10,8 @@ Measures BOTH workloads:
 Multi-host: launch one process per host with RT_COORDINATOR /
 RT_NUM_PROCESSES / RT_PROCESS_ID set and pass --distributed; the harness
 then initializes jax.distributed and builds the mesh over the GLOBAL
-device list (parallel/distributed.py). On this build environment only one
-TPU chip is reachable; --cpu validates the plumbing on virtual devices
-(CPU numbers are NOT perf-representative).
+device list (parallel/distributed.py). --cpu validates the plumbing on
+virtual CPU devices (CPU numbers are not device measurements).
 
 Prints one JSON line per device count plus the efficiency summary.
 """

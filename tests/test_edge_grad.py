@@ -212,7 +212,7 @@ def _inst_tri_scene(dx=0.0):
     cam = Camera.make(eye=(0, 0, 5), look_at=(0, 0, 0), fov=55.0)
     st = RenderSettings(width=SIZE, height=SIZE, path_trace=False,
                         max_wavefront_steps=2, ray_tile=SIZE * SIZE,
-                        intersector='cluster2')
+                        intersector='bvh')
     return scene, cam, st
 
 

@@ -45,7 +45,8 @@ def test_alpha_cutout_active():
     """The leaf texture's alpha channel must punch holes: disabling the
     alpha map (tex_alpha=-1) changes the image (reference cutout re-test,
     src/BVH.cpp:1401-1435)."""
-    scene, cam, settings = registry.make('alpha_leaf', size=32, max_bounces=2)
+    from tests.gen_scenes import leaf_scene
+    scene, cam, settings = leaf_scene(size=32, max_bounces=2)
     assert scene.has_alpha_maps
     img = _render(scene, cam, settings)
     no_alpha = scene.replace(
@@ -79,9 +80,10 @@ def test_dispersion_separates_channels():
 
 def test_translucency_adds_backlight():
     """translucency samples lights on the back side (src/Blinn.cpp:223-236);
-    the alpha_leaf scene's only light sits behind the leaves, so zeroing
+    the alpha_leaf layout's only light sits behind the leaves, so zeroing
     translucency must change (darken) lit leaf pixels."""
-    scene, cam, settings = registry.make('alpha_leaf', size=32, max_bounces=2)
+    from tests.gen_scenes import leaf_scene
+    scene, cam, settings = leaf_scene(size=32, max_bounces=2)
     assert scene.has_translucency
     img = _render(scene, cam, settings)
     opaque = scene.replace(
@@ -175,7 +177,8 @@ def test_per_light_adaptive_sampling_active():
                        spp=4, key=4)
     np.testing.assert_array_equal(base, sec_rect)
     # ...while dome scenes re-mask their secondary NEE draws
-    sd, cd, std = registry.make('dome_teapot', size=16)
+    from tests.gen_scenes import dome_scene
+    sd, cd, std = dome_scene(size=16)
     # the fixture ships whitted-style; secondary NEE draws only exist on
     # GI bounces, so path-trace it
     std = std.replace(path_trace=True, max_bounces=2, max_wavefront_steps=4)
